@@ -1,6 +1,6 @@
-// hastio — native host IO for the hast_tpu framework.
+// hastio — native host IO for the hast_jax framework.
 //
-// The TPU-native analog of the reference's C++ runtime layer
+// The native analog of the reference's C++ runtime layer
 // (gzstream + producer/consumer threads in
 // /root/reference/01.classify_stlfr_reads/classify.cpp:129-278): a
 // pipelined fastq/fasta reader that decodes (optionally gzip'd)
@@ -19,7 +19,7 @@
 // string-based single-thread design (the barcode dictionary was 47%
 // of that wall time; std::string churn most of the rest).
 //
-// C ABI (ctypes-friendly), see hast_tpu/io/native.py for the wrapper.
+// C ABI (ctypes-friendly), see hast_jax/io/native.py for the wrapper.
 
 #include <algorithm>
 #include <array>
@@ -774,7 +774,7 @@ class LineReader {
 
 // ---------------------------------------------------------------------------
 // quartering: route fastq records into 4 bins by barcode class
-// (quartering_fastq.awk semantics, see hast_tpu/pipeline/partition.py)
+// (quartering_fastq.awk semantics, see hast_jax/pipeline/partition.py)
 // ---------------------------------------------------------------------------
 
 #include <unordered_set>
@@ -1086,32 +1086,6 @@ long hastio_decide_format(const char* bcs, long n, int w,
     for (auto& th : ths) th.join();
   }
   return total;
-}
-
-// bcs: n rows of fixed width `w`, NUL-padded (numpy S dtype).  Writes
-// formatted rows into out (cap bytes); returns bytes written or -1 if
-// out would overflow.
-long hastio_format_phased(const char* bcs, long n, int w,
-                          const int32_t* hap, const int64_t* c0,
-                          const int64_t* c1, char* out, long cap) {
-  char* p = out;
-  char* end = out + cap;
-  for (long i = 0; i < n; ++i) {
-    const char* bc = bcs + i * w;
-    int len = 0;
-    while (len < w && bc[len]) ++len;
-    if (p + len + 3 + 3 * 21 + 1 > end) return -1;
-    memcpy(p, bc, len);
-    p += len;
-    *p++ = '\t';
-    p = put_i64(p, hap[i]);
-    *p++ = '\t';
-    p = put_i64(p, c0[i]);
-    *p++ = '\t';
-    p = put_i64(p, c1[i]);
-    *p++ = '\n';
-  }
-  return p - out;
 }
 
 }  // extern "C"

@@ -1,26 +1,25 @@
 #!/usr/bin/env python
-"""A/B the probe-table formats on the real chip: same 1M-read classify,
-quot (4B slots) vs full (8B slots), N warm runs each, phase timers."""
+"""A/B the probe-table formats on the GPU: same 1M-read classify,
+quot (4B slots) vs full (8B slots), N warm runs each, phase timers.
+Uses bench.py's inputs (run bench.py first)."""
 
 import os
 import pathlib
 import sys
 import time
 
-CACHE = pathlib.Path(os.environ.get("HAST_BENCH_CACHE",
-                                    "/tmp/hast_bench_cache"))
+CACHE = pathlib.Path(__file__).resolve().parents[1] / ".hast_work" / "bench"
 RUNS = int(os.environ.get("AB_RUNS", "4"))
 
 
 def main():
     sys.path.insert(0, str(pathlib.Path(__file__).parent.parent))
-    import jax
-    jax.config.update("jax_compilation_cache_dir", str(CACHE / "jax_ccache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from hast_jax.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     import numpy as np
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import hashtable as H
-    from hast_tpu.pipeline import classify as C
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import hashtable as H
+    from hast_jax.pipeline import classify as C
 
     hap0, hap1 = str(CACHE / "hap0.mer"), str(CACHE / "hap1.mer")
     reads = str(CACHE / "reads.fq")

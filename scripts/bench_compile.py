@@ -1,11 +1,13 @@
 #!/usr/bin/env python
 """Measure cold-compile time of the stage-01 device functions.
 
-BENCH_r02 showed 326.9s cold vs 1.26s warm — this script breaks that
-down per jitted function and per shape so the fix (bounding the shape
-set / precompiling) can be verified.  Run with an EMPTY jit cache:
+Breaks the cold start of a classify run down per jitted function and
+per shape, so that bounding the shape set can be verified.  Run with an
+EMPTY compilation cache:
 
-    HAST_TPU_NO_JIT_CACHE=1 python scripts/bench_compile.py
+    rm -rf .hast_work/empty_cache
+    JAX_COMPILATION_CACHE_DIR=.hast_work/empty_cache \
+        python scripts/bench_compile.py
 """
 
 import sys
@@ -23,8 +25,8 @@ def main():
     import jax.numpy as jnp
 
     jax.config.update("jax_log_compiles", True)
-    from hast_tpu.ops import hashtable as H
-    from hast_tpu.pipeline import classify as C
+    from hast_jax.ops import hashtable as H
+    from hast_jax.pipeline import classify as C
 
     rng = np.random.default_rng(0)
     n = 2_000_000

@@ -1,21 +1,21 @@
 #!/usr/bin/env python
-"""Microbenchmark: random-gather ceilings on the attached TPU.
+"""Microbenchmark: random-gather ceilings on the device.
 
 The stage-01 probe is gather-bound (ops/hashtable.py does 2 row-gathers
 per k-mer window).  This script measures the actual ceilings that bound
 any probe design:
 
-  1. XLA gather rate vs table size (VMEM-cacheable vs HBM-resident)
+  1. XLA gather rate vs table size (cache-resident vs HBM-resident)
      and row width (8/16/32/64 B).
   2. Gather rate with sorted vs random indices.
   3. A fori_loop-chained variant to check dispatch overhead.
 
-Timing rule for remote-attached devices: each measured iteration is
+Timing rule: each measured iteration is
 data-dependent on the previous one (the gathered sum feeds the next
 call's indices), and the clock stops on a host fetch of the final
 scalar — nothing can be hidden by async dispatch.
 
-Results feed PERF.md.  Run on the real chip: python scripts/bench_gather.py
+Results feed PERF.md.  Run on the GPU: python scripts/bench_gather.py
 """
 
 import functools

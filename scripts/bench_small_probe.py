@@ -14,7 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from hast_tpu.ops import hashtable as H
+from hast_jax.ops import hashtable as H
 
 ITERS = 6
 REPS = 3

@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Human-scale stage-00 soak (VERDICT r05 #2).
+"""Human-scale stage-00 soak.
 
 Exercises the counting engines at >= 1e9 total k-mers — the regime
 `count_batches_partitioned` and the 2-sweep device engine exist for
@@ -15,10 +15,10 @@ produces byte-identical markers to the single-pass resident engine:
 
 Default scale: 100 Mb genome x 30x coverage x 2 parents = 4.8e9 total
 k-mers (2.4e9/parent), ~2.3e8 distinct/parent (genome + error tail).
-Inputs cache under /tmp/hast_soak_cache (~6 GB disk).
+Inputs cache under .hast_work/soak (~6 GB disk).
 
 Usage: python scripts/bench_stage00_soak.py [--parts P]
-Env: HAST_SOAK_GENOME (bp), HAST_SOAK_COV, HAST_SOAK_CACHE.
+Env: HAST_SOAK_GENOME (bp), HAST_SOAK_COV.
 """
 
 import io
@@ -33,8 +33,7 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-CACHE = pathlib.Path(os.environ.get("HAST_SOAK_CACHE",
-                                    "/tmp/hast_soak_cache"))
+CACHE = pathlib.Path(__file__).resolve().parents[1] / ".hast_work" / "soak"
 GENOME = int(float(os.environ.get("HAST_SOAK_GENOME", 100_000_000)))
 COV = float(os.environ.get("HAST_SOAK_COV", 30.0))
 READ_LEN = 100
@@ -79,7 +78,7 @@ def ensure_inputs():
     n_reads = int(GENOME * COV / READ_LEN)
     if stamp.exists():
         return str(pat), str(mat), n_reads
-    from hast_tpu.utils.synthetic import make_trio_genomes
+    from hast_jax.utils.synthetic import make_trio_genomes
     log(f"generating trio genomes ({GENOME / 1e6:.0f} Mb) ...")
     t0 = time.perf_counter()
     pat_g, mat_g = make_trio_genomes(77, GENOME, het_rate=0.001)
@@ -107,7 +106,7 @@ class Tee(io.TextIOBase):
 
 def run_engine(pat, mat, out_tag, n_parts):
     import shutil
-    from hast_tpu.pipeline import markers as M
+    from hast_jax.pipeline import markers as M
     d = CACHE / f"out_{out_tag}"
     if d.exists():
         shutil.rmtree(d)
@@ -129,37 +128,38 @@ def main():
     kmers_total = 2 * n_reads * (READ_LEN - K + 1)
 
     import jax
-    try:
-        jax.config.update("jax_compilation_cache_dir",
-                          "/tmp/hast_bench_cache/jax_ccache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
+
+    from hast_jax.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     log(f"devices: {jax.devices()}; total k-mers {kmers_total / 1e9:.2f}e9")
 
     result = {"genome_bp": GENOME, "coverage": COV,
               "kmers_total": kmers_total, "n_parts": n_parts}
 
-    # Phase A: resident single-pass.  At ~2.3e8 distinct/parent the
-    # marker-algebra transient (sort of the 2x2^28-row concat, ~17 GB)
-    # exceeds a v5e's 16 GB HBM — exactly the regime the partitioned
-    # engine exists for.  On OOM, record the envelope and fall back to
-    # a cross-partitioning equality check (P vs 2P ranges: identical
+    # Phase A: resident single-pass, when the marker-algebra
+    # transient fits the device.  Analytic residency envelope:
+    # distinct/parent ~= genome + error tail; the algebra sorts the
+    # 2-parent concat padded to a power of two with in+out copies of
+    # (hi, lo, counts, tag) -> ~16 B/row x 2 x padded rows transient.
+    # The envelope is 7/8 of the device's bytes_limit (the rest is
+    # working set).  Past it, or on OOM, fall back to a
+    # cross-partitioning equality check (P vs 2P ranges: identical
     # output reachable via two independent key splits).
-    # analytic residency envelope: distinct/parent ~= genome + error
-    # tail; the algebra sorts the 2-parent concat padded to a power of
-    # two with in+out copies of (hi, lo, counts, tag) -> ~16 B/row x
-    # 2 x padded rows transient.  Skip the doomed attempt when that
-    # exceeds ~14 GB (v5e 16 GB minus working set).
+    limit = (jax.devices()[0].memory_stats() or {}).get("bytes_limit")
+    if limit is None:
+        sys.exit("device reports no bytes_limit; run on a GPU")
+    envelope = limit * 7 // 8
     est_distinct = int(GENOME + GENOME * COV * ERR * K)
     pad = 1 << (2 * est_distinct - 1).bit_length()
     algebra_bytes = 2 * pad * 16
     result["est_distinct_per_parent"] = est_distinct
     result["est_algebra_transient_gb"] = round(algebra_bytes / 1e9, 1)
-    if algebra_bytes > 14e9:
+    result["envelope_gb"] = round(envelope / 1e9, 1)
+    if algebra_bytes > envelope:
         log(f"resident single-pass skipped: estimated algebra transient "
-            f"{algebra_bytes / 1e9:.0f} GB exceeds v5e HBM — this scale "
-            f"is the partitioned engine's regime")
+            f"{algebra_bytes / 1e9:.0f} GB exceeds the "
+            f"{envelope / 1e9:.0f} GB envelope — this scale is the "
+            f"partitioned engine's regime")
         result["resident_s"] = None
         result["resident_oom"] = True
         paths_res = None
@@ -173,7 +173,7 @@ def main():
         except Exception as e:
             if "RESOURCE_EXHAUSTED" not in str(e):
                 raise
-            log("resident single-pass: HBM RESOURCE_EXHAUSTED — using "
+            log("resident single-pass: RESOURCE_EXHAUSTED — using "
                 "cross-partitioning check")
             result["resident_s"] = None
             result["resident_oom"] = True

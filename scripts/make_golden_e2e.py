@@ -52,7 +52,7 @@ def make_filial_reads(rng, pat_g, mat_g, r1_path, r2_path, n_pairs=12000,
 
 def main():
     import numpy as np
-    from hast_tpu.utils import synthetic as S
+    from hast_jax.utils import synthetic as S
 
     GOLD.mkdir(parents=True, exist_ok=True)
     if WORK.exists():

@@ -9,7 +9,7 @@ same markers our stage 00 reproduces bit-identically), then runs the
 REFERENCE stage-03 flow (mkoutput_by_fabulous2.0.sh) twice with the mer
 order rule of HAST.sh:220-256 (maternal-first run emits output.mother.fa,
 paternal-first emits output.father.fa).  tests/test_e2e_full.py replays
-the whole pipeline through `hast_tpu run` with a fake supernova binary
+the whole pipeline through `hast_jax run` with a fake supernova binary
 that emits this assembly, and compares the final fastas byte-for-byte.
 """
 

@@ -21,7 +21,7 @@ GOLD = pathlib.Path(__file__).resolve().parents[1] / "tests/golden/stage00"
 
 
 def main():
-    from hast_tpu.utils import synthetic as S
+    from hast_jax.utils import synthetic as S
 
     GOLD.mkdir(parents=True, exist_ok=True)
     if WORK.exists():

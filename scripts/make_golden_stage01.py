@@ -33,7 +33,7 @@ def build_reference() -> str:
 
 
 def main():
-    from hast_tpu.utils import synthetic as S
+    from hast_jax.utils import synthetic as S
 
     GOLD.mkdir(parents=True, exist_ok=True)
     exe = build_reference()

@@ -23,7 +23,7 @@ WORK = pathlib.Path("/tmp/ref_run_02")
 
 def main():
     import numpy as np
-    from hast_tpu.utils import synthetic as S
+    from hast_jax.utils import synthetic as S
 
     GOLD.mkdir(parents=True, exist_ok=True)
     if WORK.exists():

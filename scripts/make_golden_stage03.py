@@ -102,7 +102,7 @@ def make_assembly(rng, markers0, markers1, outdir):
 
 def main():
     import numpy as np
-    from hast_tpu.utils import synthetic as S
+    from hast_jax.utils import synthetic as S
 
     build_reference()
     GOLD.mkdir(parents=True, exist_ok=True)

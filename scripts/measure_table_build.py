@@ -1,17 +1,15 @@
 #!/usr/bin/env python
 """Measure host-side probe-table build at human marker scale.
 
-VERDICT r03 item 4: at ~2-4e8 markers the numpy 2-choice placement +
-cuckoo walk (ops/hashtable.build_table) and the .probetable.npz
-snapshot are a one-time but potentially minutes-long serial host cost;
-the reference's analogous cost is the unordered_set load
-(01.classify_stlfr_reads/classify.cpp:30-46).  This script times both
-on the same box and prints a PERF.md-ready row.
+At ~2-4e8 markers the 2-choice placement + cuckoo walk
+(ops/hashtable.build_table) and the .probetable.npz snapshot are a
+one-time but potentially minutes-long serial host cost; the reference's
+analogous cost is the unordered_set load
+(01.classify_stlfr_reads/classify.cpp:30-46).  This script times the
+build, the snapshot save and its load.
 
-Usage: python scripts/measure_table_build.py [n_keys] [--ref]
-  n_keys default 2e8.  --ref also times the reference classify binary's
-  marker load (needs the bench cache's compiled binary + a generated
-  .mer file of n_keys lines, which costs disk space ~22B/key).
+Usage: python scripts/measure_table_build.py [n_keys]
+  n_keys default 2e8.
 """
 
 import os
@@ -28,7 +26,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 def main():
     n = int(float(sys.argv[1])) if len(sys.argv) > 1 else 200_000_000
     k = 21
-    from hast_tpu.ops import hashtable as H
+    from hast_jax.ops import hashtable as H
 
     rng = np.random.default_rng(0)
     # uniform random 2k-bit canonical-looking keys are the right model:
@@ -63,51 +61,8 @@ def main():
         print(f"snapshot save: {save_s:.1f}s  load: {load_s:.1f}s",
               flush=True)
 
-    if "--ref" in sys.argv:
-        _time_reference_load(n, k)
-
     print(f"SUMMARY n={n:,} build={build_s:.1f}s save={save_s:.1f}s "
           f"load={load_s:.1f}s")
-
-
-def _time_reference_load(n, k):
-    """Time the reference classify binary's marker load on n/2 keys per
-    hap (it loads two sets).  Uses a tiny read file so the classify
-    phase itself is negligible."""
-    import subprocess
-
-    from hast_tpu.ops import kmer_count as KC
-
-    exe = "/tmp/hast_bench_cache/classify"
-    if not os.path.exists(exe):
-        print("reference binary not built (run bench.py once); skipping")
-        return
-    rng = np.random.default_rng(1)
-    half = n // 2
-    with tempfile.TemporaryDirectory() as td:
-        for hap in (0, 1):
-            words = (rng.integers(0, 1 << (2 * k - 32), half,
-                                  dtype=np.uint64) << np.uint64(32)) \
-                | rng.integers(0, 1 << 32, half, dtype=np.uint64)
-            path = os.path.join(td, f"hap{hap}.mer")
-            with open(path, "wb", buffering=1 << 22) as f:
-                step = 1 << 22
-                for s in range(0, half, step):
-                    chunk = KC.words_to_strings(words[s:s + step], k)
-                    f.write(b"\n".join(chunk.tolist()) + b"\n")
-            print(f"wrote hap{hap}.mer ({half:,} lines)", flush=True)
-        reads = os.path.join(td, "r.fq")
-        open(reads, "w").write("@r#1_1_1/1\n" + "A" * 50 + "\n+\n"
-                               + "F" * 50 + "\n")
-        t0 = time.perf_counter()
-        subprocess.run([exe, "--hap0", os.path.join(td, "hap0.mer"),
-                        "--hap1", os.path.join(td, "hap1.mer"),
-                        "--read", reads, "--thread", "2"],
-                       check=True, stdout=subprocess.DEVNULL,
-                       stderr=subprocess.DEVNULL)
-        ref_s = time.perf_counter() - t0
-        print(f"reference classify total (load-dominated): {ref_s:.1f}s "
-              f"for 2 x {half:,} markers", flush=True)
 
 
 if __name__ == "__main__":

@@ -3,7 +3,7 @@
 
 Separates: native reader throughput, host->device transfer, device vote
 kernel, and the overlapped end-to-end run — so perf work targets the
-actual bottleneck.  Uses the bench cache inputs.  Progress prints are
+actual bottleneck.  Uses bench.py's inputs (run bench.py first).  Progress prints are
 unbuffered (stderr).
 """
 import os
@@ -15,7 +15,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-CACHE = os.environ.get("HAST_BENCH_CACHE", "/tmp/hast_bench_cache")
+CACHE = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), ".hast_work", "bench")
 READS = os.path.join(CACHE, "reads.fq")
 HAP0 = os.path.join(CACHE, "hap0.mer")
 HAP1 = os.path.join(CACHE, "hap1.mer")
@@ -28,11 +29,11 @@ def log(*a):
 def main():
     import jax
     import jax.numpy as jnp
-    from hast_tpu.io import native as N
-    from hast_tpu.pipeline import classify as C
+    from hast_jax.io import native as N
+    from hast_jax.pipeline import classify as C
 
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.join(CACHE, "jax_ccache"))
+    from hast_jax.utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     log(f"devices: {jax.devices()}")
 
     batch_size = 1 << 15

@@ -19,17 +19,17 @@ def main():
     nprocs, pid = int(nprocs), int(pid)
 
     # distributed.initialize must run before ANYTHING touches the XLA
-    # backend — importing hast_tpu is safe, but do it after anyway
+    # backend — importing hast_jax is safe, but do it after anyway
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize(coordinator_address=coordinator,
                                num_processes=nprocs, process_id=pid)
-    from hast_tpu.parallel import distributed as D
+    from hast_jax.parallel import distributed as D
     assert jax.process_count() == nprocs, jax.process_count()
 
     gold = os.path.join(os.path.dirname(__file__), "golden", "stage01")
     if mode == "classify":
-        from hast_tpu.pipeline import classify as C
+        from hast_jax.pipeline import classify as C
         table = C.load_marker_table(os.path.join(gold, "hap0.mer"),
                                     os.path.join(gold, "hap1.mer"))
         C.erase_adaptors(table)
@@ -40,9 +40,9 @@ def main():
             with open(os.path.join(outdir, "phased.merged"), "wb") as out:
                 C.write_phased_barcodes(tally, table, out, w0=1.04)
     elif mode == "classify_tp2":
-        # VERDICT r04 #6: the tp>1 multihost path — 2 processes × 4
+        # the tp>1 multihost path — 2 processes × 4
         # local fake devices, marker table tp=2-sharded per process
-        from hast_tpu.pipeline import classify as C
+        from hast_jax.pipeline import classify as C
         assert len(jax.local_devices()) >= 4, jax.local_devices()
         table = C.load_marker_table(os.path.join(gold, "hap0.mer"),
                                     os.path.join(gold, "hap1.mer"))

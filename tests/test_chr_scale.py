@@ -16,10 +16,10 @@ import pytest
 
 import jax
 
-from hast_tpu.pipeline import classify as C
-from hast_tpu.pipeline import markers as M
-from hast_tpu.parallel import mesh as PM
-from hast_tpu.utils import synthetic as S
+from hast_jax.pipeline import classify as C
+from hast_jax.pipeline import markers as M
+from hast_jax.parallel import mesh as PM
+from hast_jax.utils import synthetic as S
 
 
 SCALE_MB = float(os.environ.get("HAST_CHR_SCALE_MB", "5"))
@@ -91,19 +91,18 @@ def test_partitioned_count_at_scale(tmp_path):
 
     Default input is sized by HAST_PART_SCALE_MB (2 MB in CI — table
     growth + 4 passes still run); set it to 50 for the full gated run
-    (a ~50 MB genome at 30x counted on one chip without OOM,
-    VERDICT r02 item 4).
+    (a ~50 MB genome at 30x counted on one chip without OOM).
     """
     import os
     mb = float(os.environ.get("HAST_PART_SCALE_MB", "2"))
-    from hast_tpu.utils import synthetic as S
+    from hast_jax.utils import synthetic as S
     import numpy as np
     rng = np.random.default_rng(11)
     genome = S.make_genome(rng, int(mb * 1e6))
     reads = tmp_path / "reads.fa"
     S.make_parent_reads(5, genome, str(reads), coverage=30.0 if mb >= 50
                         else 6.0, read_len=100)
-    from hast_tpu.pipeline import markers as M
+    from hast_jax.pipeline import markers as M
     got = M.count_files([str(reads)], 21, batch_size=16384, n_parts=4)
     assert got.n_distinct > 0
     assert np.all(np.diff(got.words.astype(np.uint64)) > 0)

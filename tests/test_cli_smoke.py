@@ -7,7 +7,7 @@ import sys
 
 import pytest
 
-from hast_tpu.cli import main
+from hast_jax.cli import main
 
 GOLD = pathlib.Path(__file__).parent / "golden"
 
@@ -85,7 +85,7 @@ def test_checkgenes_cli():
 def test_cli_classify_mesh_golden(tmp_path):
     """`classify --mesh DPxTP` through the CLI == the golden output."""
     import pathlib
-    from hast_tpu import cli
+    from hast_jax import cli
 
     gold = pathlib.Path(__file__).parent / "golden" / "stage01"
     out = tmp_path / "phased.mesh"
@@ -103,7 +103,7 @@ def test_cli_classify_mesh_golden(tmp_path):
 def test_cli_warmup_smoke(capsys):
     """`warmup` compiles and runs the production-path programs on tiny
     synthetic inputs without error and reports the cache dir."""
-    from hast_tpu import cli
+    from hast_jax import cli
 
     cli.main(["warmup", "--markers", "3000", "--reads", "256"])
     outerr = capsys.readouterr()
@@ -114,7 +114,7 @@ def test_cli_build_markers_mesh_golden(tmp_path):
     """`build-markers --mesh auto` through the CLI matches the golden
     marker sets."""
     import pathlib
-    from hast_tpu import cli
+    from hast_jax import cli
 
     gold = pathlib.Path(__file__).parent / "golden" / "stage00"
     cli.main([
@@ -136,7 +136,7 @@ def test_cli_classify_reads_mesh_golden(tmp_path):
     """`classify-reads --mesh DPxTP` (stage-01 driver on a device mesh)
     == the golden phased.barcodes."""
     import pathlib
-    from hast_tpu import cli
+    from hast_jax import cli
 
     gold = pathlib.Path(__file__).parent / "golden" / "stage01"
     cli.main([
@@ -153,10 +153,10 @@ def test_cli_classify_reads_mesh_golden(tmp_path):
 
 
 def test_cli_build_markers_mesh_rejects_tp(tmp_path, capsys):
-    """ADVICE r04: '--mesh 4x2' used to silently run dp=4 ignoring the
+    """'--mesh 4x2' used to silently run dp=4 ignoring the
     tp component; it must now be a clear error."""
     import pytest
-    from hast_tpu import cli
+    from hast_jax import cli
 
     with pytest.raises(SystemExit) as ei:
         cli.main(["build-markers", "--paternal", "x.fa",

@@ -1,6 +1,6 @@
-"""Mock-Supernova end-to-end: `hast_tpu run` chains 00→01→02→03.
+"""Mock-Supernova end-to-end: `hast_jax run` chains 00→01→02→03.
 
-VERDICT r04 #8: stages 02/03 were only golden-tested in isolation.  A
+stages 02/03 were only golden-tested in isolation.  A
 fake `supernova` executable (emitting the golden pseudohap2 assembly,
 which carries the e2e trio's marker k-mers) lets one `run` invocation
 exercise the whole HAST.sh contract (HAST.sh:138-259): markers, bins,
@@ -15,7 +15,7 @@ import stat
 
 import pytest
 
-from hast_tpu.cli import main as cli_main
+from hast_jax.cli import main as cli_main
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "e2e"
 WHITELIST = pathlib.Path(__file__).parent / "golden" / "stage02" / \

@@ -2,7 +2,7 @@
 
 The golden chain ran the reference jellyfish pipeline and classify
 binary on the same inputs (scripts/make_golden_e2e.py); here the full
-TPU pipeline (orchestrated through the CLI like a user would) must
+pipeline (orchestrated through the CLI like a user would) must
 reproduce the final phased.barcodes, barcode lists, and partitioned
 fastq bins byte-for-byte.
 """
@@ -12,7 +12,7 @@ import pathlib
 
 import pytest
 
-from hast_tpu.cli import main as cli_main
+from hast_jax.cli import main as cli_main
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "e2e"
 

@@ -10,7 +10,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from hast_tpu.ops import encode as E
+from hast_jax.ops import encode as E
 
 
 def codes_of(s):

@@ -15,7 +15,7 @@ import stat
 
 import pytest
 
-from hast_tpu.models.trio import TrioBinningPipeline
+from hast_jax.models.trio import TrioBinningPipeline
 
 E2E = pathlib.Path(__file__).parent / "golden" / "e2e"
 S03 = pathlib.Path(__file__).parent / "golden" / "stage03"

@@ -4,8 +4,8 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-from hast_tpu.ops import encode as E
-from hast_tpu.ops import hashtable as H
+from hast_jax.ops import encode as E
+from hast_jax.ops import hashtable as H
 
 
 def _random_keys(n, k, seed):
@@ -93,8 +93,8 @@ def test_build_deterministic_under_eviction():
 def test_quot_format_matches_full():
     """The 4B-quotient format answers identically to the full format."""
     import numpy as np
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import hashtable as H
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import hashtable as H
 
     rng = np.random.default_rng(7)
     k = 21
@@ -134,8 +134,8 @@ def test_quot_format_matches_full():
 def test_quot_auto_selected_for_default_k():
     """k=21 tables above ~2^13 buckets pick the quotient format."""
     import numpy as np
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import hashtable as H
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import hashtable as H
 
     rng = np.random.default_rng(8)
     seqs = rng.integers(0, 4, size=(60000, 21), dtype=np.int32)
@@ -154,8 +154,8 @@ def test_quot_auto_selected_for_default_k():
 def test_quot_bbits_edge():
     """Exact 29-bit quotient boundary: k where 2k - bbits == 29."""
     import numpy as np
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import hashtable as H
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import hashtable as H
 
     rng = np.random.default_rng(9)
     # force a 2^13-bucket table: n ~ 4*0.7*8192 ≈ 23k keys
@@ -184,15 +184,11 @@ def test_native_build_matches_numpy_build(monkeypatch):
     must probe identically to the pure-numpy path: same payloads for
     every stored key (duplicate payloads OR-merged), 0 for absent."""
     import numpy as np
-    import pytest
 
-    from hast_tpu.io import native as N
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import hashtable as H
+    from hast_jax.io import native as N
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import hashtable as H
 
-    if N.get_lib() is None or not hasattr(N.get_lib(),
-                                          "hastio_build_quot"):
-        pytest.skip("libhastio without the native table builder")
 
     rng = np.random.default_rng(13)
     n, k = 30000, 21
@@ -227,13 +223,9 @@ def test_native_sort_dedup_multithreaded_path():
     """n > 65536 engages the threaded sort + pairwise merge (a merge
     bookkeeping bug here once looped forever); verify against numpy."""
     import numpy as np
-    import pytest
 
-    from hast_tpu.io import native as N
+    from hast_jax.io import native as N
 
-    if N.get_lib() is None or not hasattr(N.get_lib(),
-                                          "hastio_sort_dedup_or"):
-        pytest.skip("libhastio without sort_dedup_or")
     rng = np.random.default_rng(17)
     n = 300_000
     hi = rng.integers(0, 1 << 10, n, dtype=np.uint64).astype(np.uint32)
@@ -262,13 +254,10 @@ def test_native_build_quot_bbits_ge_k_branches(monkeypatch, k, n):
     tables take bbits>k, which the 30k-key parity test never hits."""
     import numpy as np
 
-    from hast_tpu.io import native as N
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import hashtable as H
+    from hast_jax.io import native as N
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import hashtable as H
 
-    if N.get_lib() is None or not hasattr(N.get_lib(),
-                                          "hastio_build_quot"):
-        pytest.skip("libhastio without the native table builder")
     rng = np.random.default_rng(k)
     seqs = rng.integers(0, 4, size=(4 * n, k), dtype=np.int32)
     hi, lo = E.canonical_kmers_np(seqs, k)

@@ -5,7 +5,7 @@ import pathlib
 
 import pytest
 
-from hast_tpu.tools import heatalign as HA
+from hast_jax.tools import heatalign as HA
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "heatalign"
 

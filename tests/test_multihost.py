@@ -71,7 +71,7 @@ def test_two_process_classify_bit_identical(tmp_path):
 def test_two_process_count_matches_single(tmp_path):
     _run_workers("count", str(tmp_path))
     z = np.load(tmp_path / "count.npz")
-    from hast_tpu.pipeline import markers as M
+    from hast_jax.pipeline import markers as M
     e2e = HERE / "golden" / "e2e"
     want = M.count_files([str(e2e / "paternal.fa.gz"),
                           str(e2e / "maternal.fa.gz")], 21, batch_size=4096)
@@ -82,7 +82,7 @@ def test_two_process_count_matches_single(tmp_path):
 @pytest.mark.slow
 def test_two_process_classify_tp2_bit_identical(tmp_path):
     """2 processes × 4 fake devices, marker table tp=2-sharded per
-    process (VERDICT r04 #6: the tp>1 multihost shape)."""
+    process."""
     _run_workers("classify_tp2", str(tmp_path), devices_per_proc=4)
     merged = (tmp_path / "phased.merged").read_bytes()
     golden = (GOLD / "phased.barcodes.golden").read_bytes()
@@ -95,7 +95,7 @@ def test_two_process_count_mesh_matches_single(tmp_path):
     (count_files_multihost(use_mesh=True)) == the single-process table."""
     _run_workers("count_mesh", str(tmp_path), devices_per_proc=4)
     z = np.load(tmp_path / "count.npz")
-    from hast_tpu.pipeline import markers as M
+    from hast_jax.pipeline import markers as M
     e2e = HERE / "golden" / "e2e"
     want = M.count_files([str(e2e / "paternal.fa.gz"),
                           str(e2e / "maternal.fa.gz")], 21, batch_size=4096)

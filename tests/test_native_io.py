@@ -5,15 +5,14 @@ import pathlib
 import numpy as np
 import pytest
 
-from hast_tpu.io import fastq as FQ
+from hast_jax.io import fastq as FQ
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "stage01"
 
 
 def _native():
-    from hast_tpu.io import native as N
-    if N.get_lib() is None:
-        pytest.skip("libhastio.so unavailable")
+    from hast_jax.io import native as N
+    N.get_lib()
     return N
 
 
@@ -97,7 +96,7 @@ def test_sequence_batches_fallback_no_double_count(tmp_path):
 def test_native_quarter_matches_python(tmp_path, monkeypatch):
     N = _native()
     import io
-    from hast_tpu.pipeline import partition as P
+    from hast_jax.pipeline import partition as P
     monkeypatch.chdir(tmp_path)
     (tmp_path / "py").mkdir()
     (tmp_path / "nat").mkdir()
@@ -125,7 +124,7 @@ def test_native_quarter_matches_python(tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", ["reads1.fq.gz", "reads2.fq"])
 def test_native_packed_matches_host_pack(name):
     """packed=True rows == pack_codes_np(ASCII rows), bit-for-bit."""
-    from hast_tpu.ops.encode import pack_codes_np
+    from hast_jax.ops.encode import pack_codes_np
     N = _native()
     path = str(GOLD / name)
     plain = list(N.NativeFastqReader(path, batch_size=512, len_cap=256))
@@ -148,8 +147,8 @@ def test_native_count_clean_and_dirty_parity(tmp_path):
     match the python counting engine exactly."""
     import numpy as np
 
-    from hast_tpu.ops import kmer_count as KC
-    from hast_tpu.io import fastq as FQ
+    from hast_jax.ops import kmer_count as KC
+    from hast_jax.io import fastq as FQ
 
     rng = np.random.default_rng(23)
     B = np.frombuffer(b"ACGT", np.uint8)
@@ -171,9 +170,7 @@ def test_native_count_clean_and_dirty_parity(tmp_path):
                 f.write(b"@r%d#1_1_1/1\n%s\n+\n%s\n"
                         % (i, s, b"F" * len(s)))
         native = KC.count_file_native(str(path), k, batch_size=64)
-        if native is None:
-            import pytest
-            pytest.skip("libhastio unavailable")
+        assert native is not None, tag
         want = KC.count_batches(
             FQ.sequence_batches(str(path), k, 64), k)
         np.testing.assert_array_equal(native.words, want.words, tag)

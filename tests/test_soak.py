@@ -1,7 +1,7 @@
-"""Env-gated stage-00 soak tests (VERDICT r05 #2).
+"""Env-gated stage-00 soak tests.
 
-The full soak (100 Mb x 30x, 4.8e9 k-mers, real TPU) runs via
-scripts/bench_stage00_soak.py; results land in PERF.md §5.  This
+The full soak (100 Mb x 30x, 4.8e9 k-mers, on a GPU) runs via
+scripts/bench_stage00_soak.py.  This
 env-gated test runs the same two-engine parity at a reduced scale so
 the 2-sweep partitioned path stays exercised in CI-like runs:
 
@@ -26,8 +26,8 @@ pytestmark = pytest.mark.skipif(
 def test_partitioned_equals_resident(tmp_path):
     sys.path.insert(0, str(pathlib.Path(__file__).parents[1] / "scripts"))
     from bench_stage00_soak import write_parent_chunked
-    from hast_tpu.pipeline import markers as M
-    from hast_tpu.utils.synthetic import make_trio_genomes
+    from hast_jax.pipeline import markers as M
+    from hast_jax.utils.synthetic import make_trio_genomes
 
     genome = 2_000_000
     cov = 20.0

@@ -10,8 +10,8 @@ import pathlib
 
 import pytest
 
-from hast_tpu.pipeline import classify as C
-from hast_tpu.pipeline import partition as P
+from hast_jax.pipeline import classify as C
+from hast_jax.pipeline import partition as P
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "stage01"
 
@@ -121,7 +121,7 @@ def test_stride_budget_mixed_lengths(tmp_path):
     identically (coarse 128-base rounding only adds masked padding)."""
     import gzip
     import numpy as np
-    from hast_tpu.pipeline import classify as C
+    from hast_jax.pipeline import classify as C
 
     # budget object behavior
     sb = C._StrideBudget(budget=2)

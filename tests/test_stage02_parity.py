@@ -3,7 +3,7 @@
 import gzip
 import pathlib
 
-from hast_tpu.pipeline import tenx as T
+from hast_jax.pipeline import tenx as T
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "stage02"
 

@@ -9,7 +9,7 @@ import pathlib
 
 import pytest
 
-from hast_tpu.pipeline import rephase as R
+from hast_jax.pipeline import rephase as R
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "stage03"
 
@@ -72,7 +72,7 @@ def test_secondary_symlink(tmp_path):
 
 def test_classify_segments_fastq_mode():
     import io
-    from hast_tpu.pipeline.rephase import classify_segments
+    from hast_jax.pipeline.rephase import classify_segments
     out = io.StringIO()
     classify_segments([str(GOLD / "paternal.mer"), str(GOLD / "maternal.mer")],
                       [str(GOLD / "fastq_mode.fq")], out, fmt="fastq")
@@ -88,8 +88,8 @@ def test_classify_segments_quot_format(tmp_path):
 
     import numpy as np
 
-    from hast_tpu.ops import encode as E
-    from hast_tpu.ops import kmer_count as KC
+    from hast_jax.ops import encode as E
+    from hast_jax.ops import kmer_count as KC
 
     rng = np.random.default_rng(7)
     K = 21

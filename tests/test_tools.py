@@ -6,8 +6,8 @@ import subprocess
 
 import pytest
 
-from hast_tpu.tools.mark_library import mark_library
-from hast_tpu.tools import hic
+from hast_jax.tools.mark_library import mark_library
+from hast_jax.tools import hic
 
 REF_TOOLS = pathlib.Path("/root/reference/tools")
 
@@ -94,7 +94,7 @@ def test_filter_fq_by_barcodes_matches_awk(tmp_path):
         capture_output=True, check=True, cwd=tmp_path).stdout
     ref_log = (tmp_path / "filter_reads.log").read_bytes()
     import io as _io
-    from hast_tpu.pipeline.partition import filter_fastq_by_barcodes
+    from hast_jax.pipeline.partition import filter_fastq_by_barcodes
     out = _io.BytesIO()
     log2 = tmp_path / "ours.log"
     filter_fastq_by_barcodes(str(gold / "reads2.fq"), str(barcodes), out,

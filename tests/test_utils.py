@@ -2,8 +2,8 @@
 
 import io
 
-from hast_tpu.utils.checkpoint import step, step_done, mark_done
-from hast_tpu.utils.profiling import PhaseTimer
+from hast_jax.utils.checkpoint import step, step_done, mark_done
+from hast_jax.utils.profiling import PhaseTimer
 
 
 def test_checkpoint_roundtrip(tmp_path):
@@ -42,8 +42,8 @@ def test_phase_timer_report():
 
 def test_notice_fallback_once(capsys):
     """A demoted fast path logs exactly once per process per site
-    (VERDICT r04 weak #6: silent except-Exception fallbacks)."""
-    from hast_tpu.utils import profiling as P
+   ."""
+    from hast_jax.utils import profiling as P
 
     P._FALLBACKS_SEEN.discard("unit-test-site")
     P.notice_fallback("unit-test-site", RuntimeError("boom"))
@@ -58,7 +58,7 @@ def test_pack_acc_fetch_tiers():
     """The tally fetch tries uint8 -> uint16 -> raw int32 images; each
     tier must round-trip exactly at its boundary."""
     import jax.numpy as jnp
-    from hast_tpu.pipeline import classify as C
+    from hast_jax.pipeline import classify as C
 
     for vals in ([0, 1, 255], [0, 256, 90], [70000, 2, 1], [0, 0, 0]):
         acc = jnp.asarray(

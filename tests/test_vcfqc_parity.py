@@ -5,7 +5,7 @@ import pathlib
 
 import pytest
 
-from hast_tpu.tools import vcfqc as V
+from hast_jax.tools import vcfqc as V
 
 GOLD = pathlib.Path(__file__).parent / "golden" / "vcfqc"
 
